@@ -8,6 +8,7 @@ metrics, checkpoint/resume, and a multi-lane render.
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -23,6 +24,7 @@ from multi_purpose_mpc_tpu.parallel.mesh import fleet_mesh, fleet_metrics, round
 from multi_purpose_mpc_tpu.parallel.fleet import simulate_fleet_sharded
 from multi_purpose_mpc_tpu.simulation import init_fleet
 from multi_purpose_mpc_tpu.utils.checkpoint import load_fleet_state, save_fleet_state
+from multi_purpose_mpc_tpu.utils.compile_cache import enable_compile_cache
 from multi_purpose_mpc_tpu.utils.maps import add_obstacles_host, load_grid_map
 from multi_purpose_mpc_tpu.utils.viz import render_trajectory
 
@@ -34,10 +36,15 @@ def main():
     p.add_argument("--batch", type=int, default=1024)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--checkpoint", default="/tmp/fleet_ckpt.npz")
+    p.add_argument(
+        "--checkpoint",
+        default=os.path.join(tempfile.gettempdir(), "fleet_ckpt.npz"))
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--out", default="/tmp/fleet_trajectories.png")
+    p.add_argument(
+        "--out",
+        default=os.path.join(tempfile.gettempdir(), "fleet_trajectories.png"))
     args = p.parse_args()
+    enable_compile_cache()
 
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = (
         sim_track_preset(asset_dir=os.path.join(REPO, "assets", "maps")))
@@ -64,8 +71,7 @@ def main():
     t0 = time.perf_counter()
     res = simulate_fleet_sharded(mesh, grid, path, mpc_cfg, model_cfg,
                                  SimConfig(max_steps=args.steps), fleet)
-    # host transfer is the completion fence on the remote platform
-    _ = float(np.asarray(res.log.x.sum()))
+    jax.block_until_ready(res)
     dt = time.perf_counter() - t0
     print(f"[run] {args.steps} steps x {batch} lanes in {dt:.2f}s "
           f"= {batch * args.steps / dt:.0f} car-steps/s (incl. compile)")

@@ -15,6 +15,7 @@ Usage:
 import argparse
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -27,6 +28,7 @@ from multi_purpose_mpc_tpu.ops.grid import make_grid_map
 from multi_purpose_mpc_tpu.ops.path import build_reference_path
 from multi_purpose_mpc_tpu.ops.speed_profile import compute_speed_profile
 from multi_purpose_mpc_tpu.simulation import init_fleet, simulate_lidar_fleet
+from multi_purpose_mpc_tpu.utils.compile_cache import enable_compile_cache
 from multi_purpose_mpc_tpu.utils.maps import add_obstacles_host, load_grid_map
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,14 +43,17 @@ def main():
     ap.add_argument("--scan-backend", default="auto",
                     choices=["auto", "march", "cells"],
                     help="march = point-sampled ray march; cells = exact "
-                         "corner-span dense sweep (TPU fast path)")
+                         "corner-span dense sweep (gather-free)")
     ap.add_argument("--sharded", action="store_true",
                     help="shard lanes (and their maps) over all devices via "
                          "parallel.fleet.simulate_lidar_fleet_sharded; with "
                          "--shared the map is pooled across devices by "
                          "per-step pmax collectives")
-    ap.add_argument("--out", default="/tmp/lidar_fleet_map.png")
+    ap.add_argument(
+        "--out",
+        default=os.path.join(tempfile.gettempdir(), "lidar_fleet_map.png"))
     args = ap.parse_args()
+    enable_compile_cache()
 
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = (
         sim_track_preset(asset_dir=os.path.join(REPO, "assets", "maps")))

@@ -1,8 +1,8 @@
-"""Closed-loop demo driver (TPU-native equivalent of reference simulation.py).
+"""Closed-loop demo driver (the equivalent of reference simulation.py).
 
 Runs one of the reference scenarios end to end on-device, then renders the
 trajectory post-hoc (the reference redraws matplotlib inside the loop every
-step — simulation.py:151-163 — which is exactly what a TPU loop must not do).
+step — simulation.py:151-163 — which an on-device loop must not do).
 
     python examples/run_closed_loop.py --scenario sim_track --mode tracking
     python examples/run_closed_loop.py --mode time_optimal --gif out.gif
@@ -12,6 +12,7 @@ step — simulation.py:151-163 — which is exactly what a TPU loop must not do)
 import argparse
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -34,6 +35,7 @@ from multi_purpose_mpc_tpu.simulation import (
     simulate_fleet,
 )
 from multi_purpose_mpc_tpu.parallel.mesh import fleet_metrics
+from multi_purpose_mpc_tpu.utils.compile_cache import enable_compile_cache
 from multi_purpose_mpc_tpu.utils.maps import add_obstacles_host, load_grid_map
 from multi_purpose_mpc_tpu.utils.viz import render_trajectory, save_animation
 
@@ -50,9 +52,12 @@ def main():
     p.add_argument("--no-obstacles", dest="obstacles", action="store_false")
     p.add_argument("--steps", type=int, default=400)
     p.add_argument("--batch", type=int, default=1)
-    p.add_argument("--out", default="/tmp/mpc_trajectory.png")
+    p.add_argument(
+        "--out",
+        default=os.path.join(tempfile.gettempdir(), "mpc_trajectory.png"))
     p.add_argument("--gif", default=None)
     args = p.parse_args()
+    enable_compile_cache()
 
     preset = sim_track_preset if args.scenario == "sim_track" else real_track_preset
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = preset(

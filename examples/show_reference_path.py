@@ -1,4 +1,4 @@
-"""Reference-path inspection demo (TPU-native reference_path.py __main__).
+"""Reference-path inspection demo (the reference_path.py __main__ port).
 
 Builds either track, runs the dynamic constraint update over the whole path,
 computes a speed profile, and renders it — the reference's de-facto L1+L2

@@ -29,6 +29,7 @@ from multi_purpose_mpc_tpu.mpc import WeightSet
 from multi_purpose_mpc_tpu.ops.path import build_reference_path
 from multi_purpose_mpc_tpu.ops.speed_profile import compute_speed_profile
 from multi_purpose_mpc_tpu.simulation import init_fleet, simulate_fleet
+from multi_purpose_mpc_tpu.utils.compile_cache import enable_compile_cache
 from multi_purpose_mpc_tpu.utils.maps import add_obstacles_host, load_grid_map
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,6 +41,7 @@ def main():
     p.add_argument("--repeats", type=int, default=4,
                    help="perturbed starts per weight config (Monte-Carlo)")
     args = p.parse_args()
+    enable_compile_cache()
 
     map_cfg, path_cfg, model_cfg, mpc_cfg, speed_cfg, obstacles = (
         sim_track_preset(asset_dir=os.path.join(REPO, "assets", "maps")))
@@ -71,7 +73,7 @@ def main():
     t0 = time.perf_counter()
     res = simulate_fleet(grid, path, mpc_cfg, model_cfg,
                          SimConfig(max_steps=args.steps), fleet, weights=ws)
-    _ = float(np.asarray(res.log.x.sum()))  # completion fence
+    jax.block_until_ready(res)
     dt = time.perf_counter() - t0
     print(f"[run] {args.steps} steps x {B} lanes in {dt:.2f}s "
           f"(incl. compile)")

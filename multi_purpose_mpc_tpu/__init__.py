@@ -1,15 +1,15 @@
-"""multi_purpose_mpc_tpu — a TPU-native multi-purpose MPC framework.
+"""multi_purpose_mpc_tpu — a multi-purpose MPC framework on accelerators.
 
 A brand-new JAX/XLA/Pallas implementation of a closed-loop Linear-Time-Variant
 MPC stack for autonomous driving, providing the capabilities of the reference
 ``matssteinweg/Multi-Purpose-MPC`` (reference-path tracking, time-optimal
-driving, obstacle avoidance) re-designed TPU-first:
+driving, obstacle avoidance) re-designed as batched array programs:
 
 * all geometry, dynamics, linearization, QP assembly and the QP solver are
   pure-functional, shape-static array programs (``jit``/``vmap``/``lax.scan``);
 * the OSQP dependency of the reference is replaced by a batched, on-device
   ADMM solver (dense + block-tridiagonal Riccati-structured variants, plus a
-  Pallas TPU kernel for the hot path);
+  Pallas GPU kernel for the hot path);
 * the closed-loop simulator runs thousands of vehicles per chip under ``vmap``
   and scales over a ``jax.sharding.Mesh`` for multi-chip fleets;
 * a thin object-oriented API layer mirrors the reference's
@@ -22,6 +22,7 @@ Package layout::
     parallel/  fleet batching, mesh sharding, multi-chip rollout
     utils/     host-side asset loading, visualization, checkpointing
     api.py     reference-mirroring object API
+    backends.py    the one platform -> compute-backend choice
     simulation.py  closed-loop simulation drivers
 """
 

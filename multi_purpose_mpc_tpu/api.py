@@ -15,7 +15,7 @@ core; the hot loop (``get_control`` + ``drive``) runs one fused
 ``mpc_step``+``drive`` program per call.  For real throughput use
 :mod:`multi_purpose_mpc_tpu.simulation` (the ``lax.scan`` rollout) — the OO
 layer trades throughput for API familiarity, while still running every FLOP
-on the TPU.
+on the accelerator.
 """
 
 from __future__ import annotations

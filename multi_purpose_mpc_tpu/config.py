@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native MPC framework.
+"""Typed configuration for the MPC framework.
 
 The reference keeps all configuration as inline constants in its driver
 scripts (reference: simulation.py:17-119, reference_path.py:654-728).  Here
@@ -102,7 +102,7 @@ class SolverConfig:
     # rejections (~23% of rejects at the production budget, measured r4) at
     # ~1/32 of a solve per triggered step at batch 4096.
     #
-    # DEFAULT OFF — measured round 4 on the real-TPU Sim_Track lap: the
+    # DEFAULT OFF — measured on the Sim_Track lap (round 4): the
     # escalated lanes enter a self-reinforcing high-accuracy regime (solve
     # to ~1e-6, drive slower -> smaller QP deltas -> warm start keeps every
     # later solve at ~1e-6), and on the reference's cost-flat kappa weights
@@ -117,23 +117,6 @@ class SolverConfig:
     # solutions are unique and escalation is purely an accept-rate win.
     escalate_lanes: int = 0
     escalate_rho_updates: int = 6
-    # Stage-system solver inside the Pallas kernels.  "schur" (what "auto"
-    # resolves to) = the block-tridiagonal Schur recursion (unrolled SSA
-    # values at N <= 32, rolled VMEM-scratch loops above).  "cr" = block
-    # cyclic reduction: stage-batched (stages, lanes) planes, O(log N)
-    # sequential depth per ADMM iteration.  Both solve the same SPD system
-    # and agree to solver tolerance (tests/test_admm_pallas.py).  Measured
-    # on the v5e at N=30, B=4096: CR is SLOWER (112 vs 78 us/iteration,
-    # 0.32 vs 0.16 ms factor overhead) — the stage-batched planes pack the
-    # VPU better per op, but CR does ~2x the block-matrix work per level
-    # and its log-depth win can't pay off at 31 stages; hence auto=schur.
-    stage_solver: str = "auto"
-    # Stage-loop implementation: None = auto (unrolled SSA at N <= 32,
-    # rolled VMEM-scratch loops above), True = force rolled, False = force
-    # unrolled.  Forcing rolled at N = 30 is what lets the sublane-packed
-    # kernel_lanes=1024 layout compile (the Mosaic failure is specific to
-    # the unrolled SSA path at lanes >= 512; ops/admm_pallas._lane_shape).
-    rolled_stage_loops: bool | None = None
     # OSQP's published defaults — also what the reference's solver ran with.
     # NOTE: the reference MPC cost (R = diag(0.5, 0)) leaves the curvature
     # input nearly cost-flat, so at eps ~1e-3 ANY solver returns one of a
@@ -141,21 +124,6 @@ class SolverConfig:
     # feasibility + optimality gap, not elementwise solution match.
     eps_abs: float = 1e-3
     eps_rel: float = 1e-3
-    # Lane-tile width for the fused TPU solver kernels (multiple of 128).
-    # None = auto: 1024 -- the (8, 128) sublane-packed layout, every
-    # per-lane quantity a FULL vreg instead of 1 sublane in 8 -- once the
-    # batch can fill such a tile, else 128.  Measured on the v5e at the
-    # production budget (N=30, B=4096, round 5): 4.36 vs 14.52 ms/solve,
-    # 3.3x, identical acceptance (ops/admm_pallas.resolve_lanes).  Packed
-    # tiles require the rolled stage loops and single-tile dispatch --
-    # ops/admm_pallas._use_rolled/_dispatch_tiles handle both
-    # automatically.  Set an int to force a width (128 = the classic
-    # layout; 256 measured ~4% slower than 128 in round 2).  CAUTION:
-    # forcing 128 at LONG horizons and kilobatch can hit the Mosaic
-    # multi-tile compile cliff (measured r5: N=60 at B=1024 = 8 grid tiles
-    # fails remote compilation, while the auto packed tier compiles);
-    # leave None unless you have a measured reason.
-    kernel_lanes: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,14 +178,13 @@ class MPCConfig:
     n_scan_samples: int = 128
     max_segments: int = 8
     solver: SolverConfig = SolverConfig()
-    # QP solver backend for fleet rollouts: "pallas" = fused TPU kernel
-    # (VMEM-resident ADMM, the fast path), "xla" = vmapped stage-scan solver
-    # (portable), "auto" = pallas on TPU, xla elsewhere.
+    # QP solver backend for fleet rollouts: "kernel" = the Pallas-Triton
+    # GPU kernel (ops/admm_kernel.py), "xla" = the vmapped stage-scan
+    # solver, "auto" = the platform's choice (backends.select_backends).
     solver_backend: str = "auto"
     # Dynamic-grid scanline occupancy extraction backend (LiDAR-in-the-loop
-    # fleets): "pallas" = VMEM-resident-grid kernel, "onehot" = XLA one-hot
-    # matmul, "gather" = plain indexed read (fastest on CPU; XLA serializes
-    # it on TPU), "auto" = pallas on TPU, gather elsewhere.
+    # fleets): "gather" = plain indexed read, "onehot" = one-hot matmul,
+    # "auto" = the platform's choice (gather).
     extract_backend: str = "auto"
 
     def __post_init__(self):

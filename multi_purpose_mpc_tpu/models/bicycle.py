@@ -1,5 +1,5 @@
-"""Spatial bicycle model as pure array functions (TPU-native
-spatial_bicycle_models.py).
+"""Spatial bicycle model as pure array functions (the
+spatial_bicycle_models.py port).
 
 The reference wraps mutable state objects with ``__iadd__`` Euler updates and
 per-call Python branching (reference: spatial_bicycle_models.py:25-109,
@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from multi_purpose_mpc_tpu.ops.ltv_qp import SolverCarry, init_solver_carry
 from multi_purpose_mpc_tpu.ops.path import PathData, gather_waypoint_index, wrap_angle
+from multi_purpose_mpc_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class CarState:
     """Complete per-lane closed-loop state (fleet axis prepended under vmap).
 

@@ -1,4 +1,4 @@
-"""LTV-MPC controller as a pure function of the lane state (TPU-native MPC.py).
+"""LTV-MPC controller as a pure function of the lane state (the MPC.py port).
 
 ``mpc_step`` is the whole of the reference's ``MPC.get_control``
 (MPC.py:161-222) — localization, frame transform, corridor update, QP
@@ -25,6 +25,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from multi_purpose_mpc_tpu.backends import select_backends
 from multi_purpose_mpc_tpu.config import MPCConfig, ModelConfig
 from multi_purpose_mpc_tpu.models.bicycle import (
     CarState,
@@ -41,6 +42,7 @@ from multi_purpose_mpc_tpu.ops.constraints import (
     update_path_constraints,
 )
 from multi_purpose_mpc_tpu.ops.grid import GridMap
+from multi_purpose_mpc_tpu.ops.linalg import HIGHEST
 from multi_purpose_mpc_tpu.ops.ltv_qp import LTVQP, LTVSolution, solve_ltv_qp
 from multi_purpose_mpc_tpu.ops.path import PathData, gather_waypoint_index
 
@@ -55,7 +57,7 @@ class WeightSet(NamedTuple):
     time-optimal driving, and obstacle avoidance are *weight choices* on one
     controller (README.md:17-19, :48).  There the weights are Python
     constants baked into the script (simulation.py:100-103); here they can
-    also be per-lane arrays, so a single batched TPU program runs an entire
+    also be per-lane arrays, so a single batched program runs an entire
     tuning grid — every lane a differently-weighted controller on the same
     track (see :func:`~multi_purpose_mpc_tpu.simulation.simulate_fleet`'s
     ``weights`` argument).
@@ -101,8 +103,8 @@ def assemble_ltv_qp(path: PathData, cfg: MPCConfig, model: ModelConfig,
     ``weights`` overrides the config's static Q/R/QN diagonals with runtime
     arrays (single lane here; vmap for a per-lane tuning sweep); ``None``
     leaves fall back to the config per leaf.  ``horizon``: pre-gathered
-    ``(v_ref, kappa_ref, delta_s)`` (each (N,)) from the windowed horizon
-    table — skips the per-lane row gathers here.
+    ``(v_ref, kappa_ref, delta_s)`` (each (N,)) — skips the row gathers
+    here.
     """
     N = cfg.N
     if horizon is None:
@@ -116,7 +118,7 @@ def assemble_ltv_qp(path: PathData, cfg: MPCConfig, model: ModelConfig,
     ur = jnp.stack([v_ref, kappa_ref], -1)  # (N, 2)
     # equality rhs: row 0 pins x0; row n+1 carries uq_n = B_n ur_n - f_n
     x0 = jnp.stack([e_y, e_psi, jnp.zeros_like(e_y)])
-    uq = jnp.einsum("nij,nj->ni", B, ur) - f
+    uq = jnp.einsum("nij,nj->ni", B, ur, precision=HIGHEST) - f
     beq = jnp.concatenate([-x0[None, :], uq], axis=0)  # (N+1, 3)
 
     # cost: diagonal Q for stages 0..N-1, QN terminal, R on inputs
@@ -247,21 +249,18 @@ def mpc_pre_solve(state: CarState, path: PathData, grid: GridMap,
                   cfg: MPCConfig, model: ModelConfig,
                   segments: SegmentCandidates | None = None,
                   located=None, corridor: Corridor | None = None,
-                  weights: WeightSet | None = None, horizon=None):
+                  weights: WeightSet | None = None):
     """Per-lane work before the QP solve: localization, frame transform,
     corridor update, assembly (MPC.py:172-180).  vmappable.  ``located`` /
-    ``corridor`` / ``horizon`` can be supplied by a batched caller (e.g. the
-    Pallas corridor kernel / windowed horizon table); ``weights`` overrides
+    ``corridor`` can be supplied by a batched caller; ``weights`` overrides
     the config cost diagonals."""
     N = cfg.N
     wp_id, e_y, e_psi = located if located is not None else mpc_locate(state, path)
     if corridor is None:
         corridor = mpc_corridor(wp_id, path, grid, cfg, model, segments)
 
-    if horizon is None:
-        offs = jnp.arange(N)
-        idx = gather_waypoint_index(path, wp_id, offs)
-        horizon = (path.v_ref[idx], path.kappa[idx], path.seg_dist[idx])
+    idx = gather_waypoint_index(path, wp_id, jnp.arange(N))
+    horizon = (path.v_ref[idx], path.kappa[idx], path.seg_dist[idx])
     kappa_pred = kappa_predictions(state.u_seq, N)
     qp = assemble_ltv_qp(path, cfg, model, wp_id, e_y, e_psi, kappa_pred,
                          corridor, weights=weights, horizon=horizon)
@@ -348,7 +347,7 @@ def escalate_rejects(sol: LTVSolution, floor: jnp.ndarray, feas_tol: float,
     from the warm iterate converges essentially all of them.
 
     The escalated SOLUTION is merged; the escalated warm-start CARRY is
-    NOT.  Measured (round 4, real-TPU Sim_Track lap): carrying the
+    NOT.  Measured (round 4, Sim_Track lap): carrying the
     near-converged escalated iterate forward upgrades the lane into a
     permanent high-accuracy regime — every later solve then converges to
     ~1e-6 instead of the production budget's ~1e-3, and on the reference's
@@ -410,187 +409,65 @@ def mpc_step(state: CarState, path: PathData, grid: GridMap,
 def mpc_step_batched(state: CarState, path: PathData, grid: GridMap,
                      cfg: MPCConfig, model: ModelConfig,
                      segments: SegmentCandidates | None = None,
-                     table: jnp.ndarray | None = None,
                      weights: WeightSet | None = None) -> ControlOutput:
-    """Fleet control step with the solver running over the whole batch at
-    once — required for the fused Pallas ADMM kernel
-    (:mod:`~multi_purpose_mpc_tpu.ops.admm_pallas`), which keeps a tile of
-    lanes VMEM-resident for the entire iteration loop.
-
-    ``cfg.solver_backend`` picks "pallas" (TPU kernel) or "xla"
-    (vmapped stage-scan solver).  ``table`` is the optional windowed
-    horizon table (:mod:`~multi_purpose_mpc_tpu.ops.horizon_table`): one
-    contiguous take replaces the per-step (B, N) row gathers that profiling
-    showed dominating the step at batch 4096.
+    """Fleet control step with the QP solve batched over the whole fleet
+    (the form the ADMM kernel needs: :mod:`~.ops.admm_kernel` solves a tile
+    of lanes per program); localization and corridors are vmapped.
 
     ``weights``: per-lane :class:`WeightSet` (leading batch axis) for
     controller-tuning sweeps — heterogeneously weighted lanes in one
     program.
     """
-    backend = cfg.solver_backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-
     located = jax.vmap(lambda s: mpc_locate(s, path))(state)
-    corridor = None
-    horizon = None
-    if backend == "pallas" and table is not None:
-        from multi_purpose_mpc_tpu.ops.horizon_table import (
-            corridor_select_from_block,
-            gather_horizon_block,
-            solver_inputs_from_block,
-        )
-
-        blk = gather_horizon_block(table, located[0])
-        # corridor selection stays on the classic 128-lane tile: the packed
-        # (8,128) variant is bitwise-correct but measured SLOWER end-to-end
-        # (552k vs 671k headline steps/s, r5) -- this kernel is small enough
-        # that the tile-stack transposes + per-tile call overhead outweigh
-        # the sublane packing, unlike the ADMM solver
-        corridor = corridor_select_from_block(blk, cfg, model.safety_margin,
-                                              lanes=cfg.solver.kernel_lanes
-                                              or 128)
-        horizon = solver_inputs_from_block(blk, cfg.max_segments)
-    elif backend == "pallas" and segments is not None:
-        # fused selection kernel (static-grid fast path); dynamic grids keep
-        # the in-loop vmapped extraction below
-        from multi_purpose_mpc_tpu.ops.corridor_pallas import corridor_select_pallas
-
-        corridor = corridor_select_pallas(path, segments, located[0] + 1, cfg,
-                                          model.safety_margin,
-                                          lanes=cfg.solver.kernel_lanes
-                                          or 128)
-
-    if corridor is None:
-        corridor = jax.vmap(
-            lambda w: mpc_corridor(w, path, grid, cfg, model, segments)
-        )(located[0])
-
+    corridor = jax.vmap(
+        lambda w: mpc_corridor(w, path, grid, cfg, model, segments)
+    )(located[0])
     return mpc_step_batched_with_corridor(state, path, cfg, model, located,
-                                          corridor, backend=backend,
-                                          grid=grid, segments=segments,
-                                          horizon=horizon, weights=weights)
+                                          corridor, grid=grid,
+                                          segments=segments, weights=weights)
+
+
+def batched_solver(backend: str, solver_cfg):
+    """``(qp, warm) -> LTVSolution`` over a leading fleet axis for a
+    resolved solver backend (:func:`~.backends.select_backends`)."""
+    if backend == "kernel":
+        from multi_purpose_mpc_tpu.ops.admm_kernel import solve_ltv_qp_kernel
+
+        return lambda qp, warm: solve_ltv_qp_kernel(qp, warm, solver_cfg)
+    return jax.vmap(lambda q, w: solve_ltv_qp(q, solver_cfg, warm=w))
 
 
 def mpc_step_batched_with_corridor(state: CarState, path: PathData,
                                    cfg: MPCConfig, model: ModelConfig,
                                    located, corridor: Corridor,
-                                   backend: str | None = None,
                                    grid: GridMap = None,
                                    segments: SegmentCandidates | None = None,
-                                   horizon=None,
                                    weights: WeightSet | None = None,
                                    ) -> ControlOutput:
     """Fleet control step given an already-computed corridor — the entry
     point for callers that extract corridors themselves (e.g. per-lane
     dynamic grids in the LiDAR-in-the-loop fleet, simulation.py).
-
-    ``horizon``: optional pre-gathered ``(v_ref, kappa_ref, delta_s)``
-    (each (B, N)) from the windowed horizon table, skipping the three
-    (B, N) row gathers here.  ``weights``: per-lane cost diagonals (tuning
-    sweep); the fused kernel bakes the config weights, so sweeps run the
-    structured Pallas kernel on per-lane-assembled QPs instead — same
-    solver-tier guarantees, one extra HBM round-trip for the QP arrays."""
-    if backend is None:
-        backend = cfg.solver_backend
-        if backend == "auto":
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-
-    if backend == "pallas" and weights is not None:
-        # per-lane weights: assemble per-lane QPs (XLA) and run the
-        # structured VMEM kernel — solve_mpc_qp_fused's in-kernel assembly
-        # reads cfg's static weights and cannot express a sweep.  The
-        # pre-gathered horizon block (when available) feeds the assembly so
-        # sweeps keep the horizon-table optimization.
-        from multi_purpose_mpc_tpu.ops.admm_pallas import solve_ltv_qp_pallas
-
-        if horizon is not None:
-            pre = jax.vmap(lambda s, loc, cor, w, hz: mpc_pre_solve(
-                s, path, grid, cfg, model, segments, located=loc,
-                corridor=cor, weights=w, horizon=hz))
-            qp, aux = pre(state, located, corridor, weights, horizon)
-        else:
-            pre = jax.vmap(lambda s, loc, cor, w: mpc_pre_solve(
-                s, path, grid, cfg, model, segments, located=loc,
-                corridor=cor, weights=w))
-            qp, aux = pre(state, located, corridor, weights)
-        sol = solve_ltv_qp_pallas(qp, state.solver, cfg.solver,
-                                  lanes=cfg.solver.kernel_lanes)
-        if cfg.solver.escalate_lanes > 0:
-            esc = _escalated_cfg(cfg.solver)
-
-            def resolve(idx, warm, qp=qp):
-                qk = jax.tree.map(lambda a: jnp.take(a, idx, axis=0), qp)
-                return solve_ltv_qp_pallas(qk, warm, esc,
-                                           lanes=cfg.solver.kernel_lanes)
-
-            sol = escalate_rejects(sol, aux[4], cfg.feas_tol,
-                                   cfg.solver.escalate_lanes, resolve)
-    elif backend == "pallas":
-        # fully fused path: raw horizon gathers straight into the kernel —
-        # assembly, packing, and the ADMM loop all happen in VMEM
-        from multi_purpose_mpc_tpu.ops.admm_pallas import solve_mpc_qp_fused
-
-        wp_id, e_y, e_psi = located
-        if horizon is not None:
-            v_ref, kappa_ref, delta_s = horizon
-        else:
-            offs = jnp.arange(cfg.N)
-            idxs = jax.vmap(
-                lambda w: gather_waypoint_index(path, w, offs))(wp_id)
-            v_ref = path.v_ref[idxs]
-            kappa_ref = path.kappa[idxs]
-            delta_s = path.seg_dist[idxs]
-        x0 = jnp.stack([e_y, e_psi, jnp.zeros_like(e_y)], axis=-1)
-        kp = jax.vmap(lambda u: kappa_predictions(u, cfg.N))(state.u_seq)
-        # the certified violation floor comes from the kernel itself
-        # (same recurrence as corridor_violation_floor over the same
-        # horizon data, computed on the VMEM-resident inputs): the external
-        # vmapped recurrence measured ~1 ms/step at B=4096 — 18% of the r5
-        # headline step (latency-bound (B,)-wide ops)
-        sol, floor = solve_mpc_qp_fused(v_ref, kappa_ref, delta_s,
-                                        corridor.lb, corridor.ub, x0, kp,
-                                        state.solver, cfg.solver, cfg,
-                                        model,
-                                        lanes=cfg.solver.kernel_lanes,
-                                        return_floor=True)
-        aux = (wp_id, e_y, e_psi, corridor, floor)
-        if cfg.solver.escalate_lanes > 0:
-            esc = _escalated_cfg(cfg.solver)
-
-            def resolve(idx, warm):
-                g = lambda a: jnp.take(a, idx, axis=0)
-                return solve_mpc_qp_fused(g(v_ref), g(kappa_ref), g(delta_s),
-                                          g(corridor.lb), g(corridor.ub),
-                                          g(x0), g(kp), warm, esc, cfg,
-                                          model,
-                                          lanes=cfg.solver.kernel_lanes)
-
-            sol = escalate_rejects(sol, floor, cfg.feas_tol,
-                                   cfg.solver.escalate_lanes, resolve)
+    ``weights``: per-lane cost diagonals (tuning sweep)."""
+    backend = select_backends(jax.default_backend(),
+                              solver=cfg.solver_backend).solver
+    if weights is None:
+        qp, aux = jax.vmap(lambda s, loc, cor: mpc_pre_solve(
+            s, path, grid, cfg, model, segments, located=loc,
+            corridor=cor))(state, located, corridor)
     else:
-        if weights is None:
-            pre = jax.vmap(lambda s, loc, cor: mpc_pre_solve(
-                s, path, grid, cfg, model, segments, located=loc,
-                corridor=cor))
-            qp, aux = pre(state, located, corridor)
-        else:
-            pre = jax.vmap(lambda s, loc, cor, w: mpc_pre_solve(
-                s, path, grid, cfg, model, segments, located=loc,
-                corridor=cor, weights=w))
-            qp, aux = pre(state, located, corridor, weights)
-        sol = jax.vmap(lambda q, w: solve_ltv_qp(q, cfg.solver, warm=w))(
-            qp, state.solver)
-        if cfg.solver.escalate_lanes > 0:
-            esc = _escalated_cfg(cfg.solver)
+        qp, aux = jax.vmap(lambda s, loc, cor, w: mpc_pre_solve(
+            s, path, grid, cfg, model, segments, located=loc,
+            corridor=cor, weights=w))(state, located, corridor, weights)
+    sol = batched_solver(backend, cfg.solver)(qp, state.solver)
+    if cfg.solver.escalate_lanes > 0:
+        escalated = batched_solver(backend, _escalated_cfg(cfg.solver))
 
-            def resolve(idx, warm, qp=qp):
-                qk = jax.tree.map(lambda a: jnp.take(a, idx, axis=0), qp)
-                return jax.vmap(lambda q, w: solve_ltv_qp(q, esc, warm=w))(
-                    qk, warm)
+        def resolve(idx, warm):
+            qk = jax.tree.map(lambda a: jnp.take(a, idx, axis=0), qp)
+            return escalated(qk, warm)
 
-            sol = escalate_rejects(sol, aux[4], cfg.feas_tol,
-                                   cfg.solver.escalate_lanes, resolve)
+        sol = escalate_rejects(sol, aux[4], cfg.feas_tol,
+                               cfg.solver.escalate_lanes, resolve)
 
     post = jax.vmap(lambda s, so, a: mpc_post_solve(s, so, a, cfg, model))
     return post(state, sol, aux)
@@ -607,7 +484,7 @@ def _escalated_cfg(solver_cfg):
     fully converge the QP.  With the 100x-rho polish the escalated solve
     lands at ~1e-6, and on the reference's cost-flat kappa weights
     (R = diag(0.5, 0)) fully-converged solves pick bound-saturating
-    members of the optimal kappa band — measured on the real-TPU Sim_Track
+    members of the optimal kappa band — measured on the Sim_Track
     lap: mean speed 0.92 -> 0.65 (the |kappa_pred| term collapses the
     dynamic speed cap) and the lap stops completing.  The production
     iteration budget is the same implicit regularization OSQP's eps ~1e-3

@@ -25,7 +25,7 @@ Design points (SURVEY.md §7 shift #2 and #3):
   exception;
 * **equality rows** (l_i == u_i) get ``rho * rho_eq_scale``, which keeps the
   dynamics constraints tight (OSQP convention);
-* all matmuls pin ``precision=HIGHEST`` — TPU's default bf16 matmul passes
+* all matmuls pin ``precision=HIGHEST`` — reduced-precision matmul passes
   shift the ADMM fixed point (measured ~5e-2 error on a benign QP);
 * the KKT matrix is factorized once per rho update and reused across
   iterations — the thing OSQP was designed for but the reference's per-step

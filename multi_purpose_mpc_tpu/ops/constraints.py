@@ -1,4 +1,4 @@
-"""Dynamic drivable-corridor constraints (TPU-native reference_path.py:466-648).
+"""Dynamic drivable-corridor constraints (the reference_path.py:466-648 port).
 
 Each control step the MPC needs, for every horizon waypoint, the upper/lower
 e_y bounds of the drivable corridor, accounting for obstacles rasterized into
@@ -66,8 +66,8 @@ def segments_from_samples(occ, cx, cy, min_width,
 
     Fully vectorized: run extraction and front-compaction use cumsum +
     one-hot reductions, not flatnonzero/gather — at fleet scale this runs
-    B x N instances per step, and XLA lowers sorts/gathers poorly on TPU
-    while these (raw, K) masked reductions ride the VPU.
+    B x N instances per step, where these (raw, K) masked reductions stay
+    elementwise and fuse.
     """
     free = occ > 0.5  # (K,)
     K = occ.shape[-1]

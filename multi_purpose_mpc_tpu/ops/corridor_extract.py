@@ -3,45 +3,30 @@
 The LiDAR-in-the-loop fleet needs, every step, the occupancy values along
 each lane's N horizon scanlines (reference walks Bresenham cell lists per
 waypoint: reference_path.py:466-520).  At batch 256 that is ~1M grid reads
-per step; XLA lowers random element gathers to a serialized scalar loop
-(~0.5 us/element measured on a v5e — 59% of the whole extraction cost,
-ROUND_NOTES.md round-3 leads), which made the dynamic-corridor path 17x
-slower than the static-grid fleet.
+per step.  The scanline sample *coordinates* are static per waypoint (the
+border points are path data), so they live in a precomputed
+:class:`ScanlineTable` and the per-step work is only "read occupancy at K
+static pixels for the N horizon waypoints of each lane", by one of two
+backends that agree exactly:
 
-Two TPU-native reformulations fix this, both built on one observation: the
-scanline sample *coordinates* are static per waypoint (the border points are
-path data), so they live in a precomputed :class:`ScanlineTable` and the
-per-step work is only "read occupancy at K static pixels for the N horizon
-waypoints of each lane":
-
-* ``onehot`` — express the read as a one-hot matmul on the MXU:
-  ``val[s] = sum_j rowOH[s,i] * occ[i,j] * colOH[s,j]`` contracted as a
-  bf16 einsum (0/1 values are exact in bf16).  Pure XLA, portable.
-* ``pallas`` — a kernel that keeps the lane's whole grid VMEM-resident
-  (500x500 f32 = 1 MB << 16 MB VMEM) and does the same one-hot contraction
-  per 128-row window around each scanline — no HBM intermediates, no
-  serialized gathers.
-
-``gather`` keeps the plain indexed read (fastest on CPU, and the semantic
-reference for tests).
+* ``gather`` — the plain indexed read (the semantic reference for tests);
+* ``onehot`` — the read as a one-hot matmul,
+  ``val[s] = sum_j rowOH[s,i] * occ[i,j] * colOH[s,j]``, contracted as a
+  bf16 einsum (0/1 values are exact in bf16).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from flax import struct
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from multi_purpose_mpc_tpu.ops.grid import GridMap, m2w
 from multi_purpose_mpc_tpu.ops.path import PathData
 from multi_purpose_mpc_tpu.ops.rays import sample_line
+from multi_purpose_mpc_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class ScanlineTable:
     """Static per-waypoint scanline sample data (all shapes (n_wp, K)).
 
@@ -49,12 +34,7 @@ class ScanlineTable:
     that were genuinely inside the grid (out-of-bounds samples read as
     occupied, matching :func:`~..ops.grid.lookup`); ``cx``/``cy`` are the
     world coordinates of the sample *cell centers* (the endpoint convention
-    of reference_path.py:488-518).  ``row0`` is a per-waypoint 8-aligned
-    row-window start such that every sample row of that waypoint lies in
-    ``[row0, row0 + window_rows)`` — the Pallas kernel's dynamic-slice base.
-
-    Build OUTSIDE jit (``window_rows`` is concretized); pass freely across
-    jit boundaries (``window_rows`` rides the static pytree aux data).
+    of reference_path.py:488-518).
     """
 
     px: jnp.ndarray  # (n_wp, K) int32, clipped
@@ -62,8 +42,6 @@ class ScanlineTable:
     inb: jnp.ndarray  # (n_wp, K) bool
     cx: jnp.ndarray  # (n_wp, K) f32 world x of cell center
     cy: jnp.ndarray  # (n_wp, K) f32 world y of cell center
-    row0: jnp.ndarray  # (n_wp,) int32
-    window_rows: int = struct.field(pytree_node=False, default=128)
 
 
 def build_scanline_table(grid: GridMap, path: PathData,
@@ -81,38 +59,18 @@ def build_scanline_table(grid: GridMap, path: PathData,
     cx, cy = m2w(grid, s.px, s.py)
     px = jnp.clip(s.px, 0, w - 1)
     py = jnp.clip(s.py, 0, h - 1)
-
-    # 8-aligned row window per waypoint, sized to the worst-case row span
-    # MEASURED FROM THE ALIGNED START: row0 floors rmin to a multiple of 8
-    # (Mosaic dynamic-slice alignment), which costs up to 7 rows of the
-    # window — the coverage condition is rmax < row0 + window_rows, so the
-    # span that must fit is (rmax - floor8(rmin) + 1), not (rmax - rmin + 1)
-    rmin = py.min(axis=1)
-    rmax = py.max(axis=1)
-    rmin8 = (rmin // 8) * 8
-    span = int(jnp.max(rmax - rmin8)) + 1
-    window_rows = max(((span + 7) // 8) * 8, 8)
-    window_rows = min(((window_rows + 127) // 128) * 128
-                      if window_rows > 128 else 128, ((h + 7) // 8) * 8)
-    row0 = jnp.clip(rmin8, 0, max(h - window_rows, 0))
-    if span > window_rows:  # window can't cover the span: degenerate config
-        raise ValueError(
-            f"scanline row span {span} exceeds window {window_rows}; "
-            f"grid height {h} too small for the configured max_width")
-    return ScanlineTable(px=px, py=py, inb=inb, cx=cx, cy=cy,
-                         row0=row0.astype(jnp.int32),
-                         window_rows=window_rows)
+    return ScanlineTable(px=px, py=py, inb=inb, cx=cx, cy=cy)
 
 
 def horizon_tables(table: ScanlineTable, idx: jnp.ndarray):
     """Gather the (B, N) horizon rows out of the static table — contiguous
-    row gathers, cheap.  Returns px, py, row0 with leading (B, N)."""
+    row gathers, cheap.  Returns px, py, inb, cx, cy with leading (B, N)."""
     return (table.px[idx], table.py[idx], table.inb[idx], table.cx[idx],
-            table.cy[idx], table.row0[idx])
+            table.cy[idx])
 
 
 # ---------------------------------------------------------------------------
-# Backend 1: plain gather (CPU / semantic reference)
+# Backend 1: plain gather (the semantic reference)
 # ---------------------------------------------------------------------------
 
 
@@ -126,7 +84,7 @@ def extract_occ_gather(occ: jnp.ndarray, px: jnp.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Backend 2: one-hot matmul (XLA, MXU)
+# Backend 2: one-hot matmul
 # ---------------------------------------------------------------------------
 
 
@@ -169,141 +127,23 @@ def extract_occ_onehot(occ: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray,
     return jnp.moveaxis(vals, 0, 1).reshape(B, N + n_pad, K)[:, :N]
 
 
-# ---------------------------------------------------------------------------
-# Backend 3: Pallas kernel (VMEM-resident grid)
-# ---------------------------------------------------------------------------
-
-
-def scanline_window_rows(read_window, px_ref, py_ref, row0_at,
-                         N: int, K: int, W: int, R: int) -> jnp.ndarray:
-    """Shared kernel-body fragment: contract the lane's N scanline windows
-    against a VMEM-resident grid (one bf16 one-hot dot + row-mask reduction
-    per waypoint).  Used verbatim by the extraction kernel here AND the
-    fused write-back+extraction kernel (:mod:`..ops.mapping_pallas`) so
-    window semantics cannot drift between them.
-
-    ``read_window(r0_aligned) -> (R, W)`` reads the grid window;
-    ``row0_at(n)`` reads the waypoint's 8-aligned window start (from
-    scalar-prefetch SMEM — Mosaic requires dynamic-slice starts there, and
-    the ``pl.multiple_of`` hint to allow a dynamic sublane-dim start).
-    Returns the (N, K) occupancy values.
-    """
-    iw = jax.lax.broadcasted_iota(jnp.int32, (K, W), 1)
-    ir = jax.lax.broadcasted_iota(jnp.int32, (K, R), 1)
-    rows = []
-    for n in range(N):
-        r0 = row0_at(n)
-        r0a = pl.multiple_of(r0, 8)  # 8-aligned by construction
-        win = read_window(r0a)  # (R, W)
-        px = px_ref[0, n]  # (K,)
-        py = py_ref[0, n]
-        colOH = (px[:, None] == iw).astype(jnp.bfloat16)  # (K, W)
-        colsel = jax.lax.dot_general(
-            colOH, win.astype(jnp.bfloat16),
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32)  # (K, R)
-        rowOH = (py[:, None] - r0) == ir
-        rows.append(jnp.where(rowOH, colsel, 0.0).sum(axis=1))
-    return jnp.stack(rows)  # (N, K)
-
-
-def _make_extract_kernel(N: int, K: int, H: int, W: int, R: int,
-                         shared: bool):
-    """One program = one lane: the lane's grid stays VMEM-resident while all
-    N scanlines contract against a dynamic R-row window around each."""
-
-    def kernel(row0_ref, occ_ref, px_ref, py_ref, out_ref):
-        b = pl.program_id(0)
-        if shared:
-            read = lambda r0a: occ_ref[pl.dslice(r0a, R), :]
-        else:
-            read = lambda r0a: occ_ref[0, pl.dslice(r0a, R), :]
-        out_ref[0] = scanline_window_rows(read, px_ref, py_ref,
-                                          lambda n: row0_ref[b, n],
-                                          N, K, W, R)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("window_rows", "interpret"))
-def extract_occ_pallas(occ: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray,
-                       row0: jnp.ndarray, window_rows: int,
-                       interpret: bool = False) -> jnp.ndarray:
-    """Kernel-backed extraction.  occ (B, H, W) per-lane or (H, W) shared;
-    px/py (B, N, K) clipped pixel coords; row0 (B, N) 8-aligned window
-    starts with ``row0 + window_rows <= H_pad``."""
-    B, N, K = px.shape
-    shared = occ.ndim == 2
-    H, W = occ.shape[-2:]
-    R = window_rows
-
-    # pad H so every window fits and sits sublane-aligned
-    Hp = ((max(H, R) + 7) // 8) * 8
-    if Hp != H:
-        pad = [(0, Hp - H), (0, 0)]
-        if not shared:
-            pad = [(0, 0)] + pad
-        occ = jnp.pad(occ, pad)
-
-    kernel = _make_extract_kernel(N, K, Hp, W, R, shared)
-
-    if shared:
-        occ_spec = pl.BlockSpec((Hp, W), lambda b, r0: (0, 0),
-                                memory_space=pltpu.VMEM)
-    else:
-        occ_spec = pl.BlockSpec((1, Hp, W), lambda b, r0: (b, 0, 0),
-                                memory_space=pltpu.VMEM)
-
-    # row0 rides scalar prefetch (SMEM, unblocked) — it feeds dynamic-slice
-    # starts, which Mosaic requires to come from scalar memory
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B,),
-        in_specs=[
-            occ_spec,
-            pl.BlockSpec((1, N, K), lambda b, r0: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, K), lambda b, r0: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, N, K), lambda b, r0: (b, 0, 0),
-                               memory_space=pltpu.VMEM),
-    )
-    out = pl.pallas_call(
-        kernel, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, N, K), jnp.float32),
-        interpret=interpret,
-    )(row0, occ, px, py)
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Dispatch
-# ---------------------------------------------------------------------------
-
-
 def extract_occ(occ: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray,
-                row0: jnp.ndarray, window_rows: int,
-                backend: str = "auto") -> jnp.ndarray:
+                backend: str = "gather") -> jnp.ndarray:
     """Occupancy values at the horizon scanline samples.
 
-    backend: "gather" | "onehot" | "pallas" | "auto" (pallas on TPU, gather
-    elsewhere).  All three agree exactly (0/1 values; tests pin it).
+    backend: "gather" | "onehot" (they agree exactly: 0/1 values; tests pin
+    it).
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "gather"
     if backend == "gather":
         return extract_occ_gather(occ, px, py)
     if backend == "onehot":
         return extract_occ_onehot(occ, px, py)
-    if backend == "pallas":
-        return extract_occ_pallas(occ, px, py, row0, window_rows)
     raise ValueError(f"unknown extraction backend {backend!r}")
 
 
 def fleet_dynamic_segments(occ: jnp.ndarray, table: ScanlineTable,
                            idx: jnp.ndarray, min_width, max_segments: int,
-                           backend: str = "auto"):
+                           backend: str = "gather"):
     """Per-lane free-segment candidates from per-lane (B, H, W) or shared
     (H, W) dynamic grids — the fleet-scale replacement for vmapping
     :func:`~..ops.constraints.free_segments` over lanes and horizon steps.
@@ -313,8 +153,8 @@ def fleet_dynamic_segments(occ: jnp.ndarray, table: ScanlineTable,
     """
     from multi_purpose_mpc_tpu.ops.constraints import segments_from_samples
 
-    pxh, pyh, inbh, cxh, cyh, row0h = horizon_tables(table, idx)
-    vals = extract_occ(occ, pxh, pyh, row0h, table.window_rows, backend)
+    pxh, pyh, inbh, cxh, cyh = horizon_tables(table, idx)
+    vals = extract_occ(occ, pxh, pyh, backend)
     vals = jnp.where(inbh, vals, 0.0)  # OOB samples read as occupied
     seg1 = lambda v, a, b: segments_from_samples(v, a, b, min_width,
                                                  max_segments)

@@ -1,4 +1,4 @@
-"""Occupancy-grid map ops (TPU-native equivalent of reference map.py).
+"""Occupancy-grid map ops (the array equivalent of reference map.py).
 
 The reference ``Map`` is a mutable object wrapping a numpy array that is
 rasterized into with Python loops and fancy indexing (reference:
@@ -21,15 +21,16 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from multi_purpose_mpc_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class GridMap:
     """Occupancy grid + metadata as a jit-able pytree.
 
     ``occ`` is float32 with 1.0 = free, 0.0 = occupied so that grid lookups
-    can ride the VPU without dtype churn; ``origin``/``resolution`` are
+    stay elementwise float math without dtype churn; ``origin``/``resolution`` are
     device scalars so one compiled program serves any map of a given shape.
     """
 

@@ -1,9 +1,9 @@
-"""LiDAR sensor model as a vmapped beam ray-march (TPU-native lidar_model.py).
+"""LiDAR sensor model as a vmapped beam ray-march (the lidar_model.py port).
 
 The reference scans by brute force: an O((2 range_px)^2) Python double loop
 over every grid cell in range, computing per occupied cell the angular span
 of its 9 corner points and min-updating every beam inside the span
-(reference: lidar_model.py:37-112) — the single most TPU-friendly component
+(reference: lidar_model.py:37-112) — the single most data-parallel component
 to redesign (SURVEY.md §3.5).  Here each *beam* marches a fixed number of
 samples along its ray and takes the first occupied cell: ``n_beams x K``
 grid lookups, fully data-parallel, thousands of scans per chip under vmap.
@@ -237,36 +237,30 @@ def waypoint_slack(path) -> float:
 
 
 def scan_fleet(grid: GridMap, x, y, psi, cfg: LidarConfig,
-               cells: jnp.ndarray | None = None, backend: str = "auto",
+               cells: jnp.ndarray | None = None, backend: str = "march",
                chunk: int = 2048, wp_id: jnp.ndarray | None = None
                ) -> LidarScan:
     """Batched scans for a fleet of poses (x, y, psi each (B,)).
 
     backends:
       * ``march`` — vmapped :func:`scan` (first occupied point-sample per
-        beam).  Portable, but B x n_beams x K random grid gathers per call,
-        which XLA serializes on TPU (~0.5 us each).
-      * ``cells`` — TPU-native reformulation of the reference's per-cell
+        beam): B x n_beams x K random grid gathers per call.
+      * ``cells`` — gather-free reformulation of the reference's per-cell
         sweep (lidar_model.py:62-108): iterate the STATIC true grid's
         occupied-cell list (``cells``, precomputed once at setup by
         :func:`occupied_cell_table`) and test every (lane, cell, beam)
         triple with the same ray-square-intersection reduction as
-        ``scan(conservative=True)`` — dense VPU math, zero gathers.
+        ``scan(conservative=True)`` — dense elementwise math, zero gathers.
         Semantics are therefore the reference's EXACT corner-span scan.
         ``cells`` may instead be a per-waypoint pruned table
         (:func:`waypoint_cell_table`, shape (n_wp, K, 2)); then ``wp_id``
         (B,) selects each lane's candidate row — same results, K << M
         pair tests on large maps.
-      * ``auto`` — ``cells`` on TPU when a cell table is given, else
-        ``march``.
 
     Tie-breaking between equidistant hit cells is deterministic (smaller
     pixel-y, then pixel-x) but may differ from ``scan(conservative)``'s
     sample-order argmin on exact ties; measured ranges are identical.
     """
-    if backend == "auto":
-        backend = ("cells" if cells is not None
-                   and jax.default_backend() == "tpu" else "march")
     if backend == "march":
         return jax.vmap(lambda a, b, c: scan(grid, a, b, c, cfg))(x, y, psi)
     if backend != "cells":
@@ -358,7 +352,7 @@ def measurements(scan_out: LidarScan) -> jnp.ndarray:
 
 def _pair_mask(py, px, valid, H: int, W: int):
     """Dense (..., H, W) mask of the (py, px) points via a one-hot matmul —
-    the MXU replacement for scatter (which XLA serializes per element).
+    the matmul replacement for a scatter.
     ``py``/``px`` (..., S) clipped int32; ``valid`` (..., S) bool."""
     ih = jnp.arange(H, dtype=py.dtype)
     iw = jnp.arange(W, dtype=px.dtype)
@@ -458,9 +452,8 @@ def fleet_writeback(grid: GridMap, occ: jnp.ndarray, x, y, psi,
                     lane_chunk: int = 16) -> jnp.ndarray:
     """Batched online map update with NO scatters: hit (and observed-free)
     cells become dense masks via one-hot matmuls, then one elementwise grid
-    update.  Replaces per-lane ``update_grid_from_scan`` scatter-writes in
-    the fleet hot loop (measured 34 ms/step at B=256 on a v5e; the matmul
-    form is <1 ms).
+    update — the matmul alternative to per-lane ``update_grid_from_scan``
+    scatter-writes in the fleet hot loop.
 
     ``occ`` (B, H, W) per-lane (``shared=False``) or (H, W) (``shared=True``,
     all lanes pooled into one map); ``scans`` carries a leading B axis.

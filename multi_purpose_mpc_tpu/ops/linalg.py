@@ -1,11 +1,12 @@
 """Precision-pinned linear algebra helpers.
 
-On TPU, JAX's default matmul precision decomposes float32 matmuls into
-bfloat16 passes on the MXU, which is ideal for neural nets but fatal for an
-ADMM solver: per-iteration solve error accumulates into the scaled dual
-variable and shifts the fixed point (measured: ~5e-2 solution error on a
-conditioned QP that solves to ~1e-5 with exact float32).  Every matmul in a
-solver path must therefore pin ``precision=HIGHEST`` (full fp32 on the MXU).
+On an H100, JAX's default precision may run a float32 matrix product in
+TF32 on the tensor cores (about three decimal digits), which is fine for
+neural nets but fatal for an ADMM solver: per-iteration solve error
+accumulates into the scaled dual variable and shifts the fixed point
+(measured with bf16-pass matmuls: ~5e-2 solution error on a conditioned QP
+that solves to ~1e-5 with exact float32).  Every matmul in a solver path
+therefore pins ``precision=HIGHEST`` (full fp32).
 """
 
 from __future__ import annotations

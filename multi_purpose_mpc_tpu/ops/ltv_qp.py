@@ -20,11 +20,12 @@ reduced KKT matrix
 (Schur-complement recursion) in one ``lax.scan`` over the N+1 stages, and
 each ADMM iteration applies two stage scans (forward/backward substitution)
 plus elementwise work — everything batches cleanly over a fleet axis under
-``vmap`` (4096 lanes = batched (B, 5, 5) ops on the VPU/MXU).
+``vmap`` (4096 lanes = batched (B, 5, 5) ops).
 
 Complexity per solve: O(N) 5x5 factorizations + iters * O(N) 5x5 matvecs —
-versus O((N nx)^3) for a dense factor.  This is the TPU-native equivalent of
-exploiting OSQP's sparse KKT factorization (SURVEY.md §7 shift #2).
+versus O((N nx)^3) for a dense factor.  This is the array-program equivalent
+of exploiting OSQP's sparse KKT factorization (SURVEY.md §7 shift #2).  On a
+GPU the same algorithm runs fused in one kernel (:mod:`.admm_kernel`).
 """
 
 from __future__ import annotations
@@ -33,18 +34,18 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from multi_purpose_mpc_tpu.config import SolverConfig
 from multi_purpose_mpc_tpu.ops import admm as admm_mod
 from multi_purpose_mpc_tpu.ops.linalg import HIGHEST, mv
+from multi_purpose_mpc_tpu.utils import pytree
 
 NX = 3
 NU = 2
 NW = NX + NU  # stage width
 
 
-@struct.dataclass
+@pytree.dataclass
 class LTVQP:
     """One LTV-MPC QP instance (leading fleet axes allowed on every field).
 
@@ -70,7 +71,7 @@ class LTVQP:
         return self.B.shape[-3]
 
 
-@struct.dataclass
+@pytree.dataclass
 class SolverCarry:
     """Complete ADMM iterate, persisted across control steps per lane.
 
@@ -249,10 +250,9 @@ def _unpack_stages(W):
 def admm_iteration(qp: LTVQP, Sinv, C, rho_eq, rho_x, rho_u, sigma, alpha,
                    state):
     """One ADMM iteration on the factored stage system — THE iteration body
-    of both the XLA solver below and (algorithmically) the fused Pallas
-    kernels.  Module-level so tools/roofline.py can cost-analyze exactly the
-    production body (XLA's cost analysis does not multiply loop bodies by
-    their trip count, so per-iteration FLOPs must come from the body alone).
+    of both the XLA solver below and (algorithmically) the GPU kernel
+    (:mod:`.admm_kernel`).  Module-level so tools/flop_count.py can count
+    exactly the production body.
     """
     X, U, Zx, Zu, Yeq, Yx, Yu = state
     # rhs = sigma z - q + A'(rho o z_c - y)

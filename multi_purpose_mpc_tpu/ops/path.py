@@ -1,4 +1,4 @@
-"""Reference-path geometry as struct-of-arrays (TPU-native reference_path.py).
+"""Reference-path geometry as struct-of-arrays (the reference_path.py port).
 
 The reference stores a Python list of ``Waypoint`` objects and loops over it
 everywhere (reference_path.py:20-57, 99).  Here the whole path is one
@@ -20,11 +20,11 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from multi_purpose_mpc_tpu.config import PathConfig
 from multi_purpose_mpc_tpu.ops.grid import GridMap, m2w, w2m
 from multi_purpose_mpc_tpu.ops.rays import first_occupied, sample_line
+from multi_purpose_mpc_tpu.utils import pytree
 
 EPS = 1e-12
 
@@ -38,7 +38,7 @@ def wrap_angle_np(a):
     return np.mod(a + np.pi, 2.0 * np.pi) - np.pi
 
 
-@struct.dataclass
+@pytree.dataclass
 class PathData:
     """Struct-of-arrays reference path (replaces Waypoint objects).
 
@@ -60,7 +60,7 @@ class PathData:
     cum_len: jnp.ndarray  # (n,) cumulative seg_len
     seg_dist: jnp.ndarray  # (n,) d(i, i+1) with wrap/clamp — horizon delta_s gather
     length: jnp.ndarray  # () total center-line length
-    circular: bool = struct.field(pytree_node=False, default=False)
+    circular: bool = pytree.field(static=True, default=False)
 
     @property
     def n_wp(self) -> int:
@@ -135,7 +135,7 @@ def compute_static_width(grid: GridMap, x, y, psi, max_width: float,
                          n_ray_samples: int = 128):
     """Static drivable width left/right of the center-line via ray-march.
 
-    TPU reformulation of the reference's 9-target Bresenham walk
+    Array reformulation of the reference's 9-target Bresenham walk
     (reference_path.py:206-287): for each waypoint and each side, march rays
     from the waypoint toward the point ``max_width`` along the orthogonal
     direction — one ray per 3x3 pixel-neighborhood target, matching the

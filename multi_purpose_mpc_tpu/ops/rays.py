@@ -4,7 +4,7 @@ The reference uses three different Cython/Python cell-walking loops —
 ``line_aa`` ray-marching for path width (reference_path.py:243-287), the
 border-to-border scanline for free segments (reference_path.py:466-520), and
 the per-cell lidar sweep (lidar_model.py:37-112).  All three reduce to one
-TPU-friendly primitive: sample K evenly spaced points along a world-space
+data-parallel primitive: sample K evenly spaced points along a world-space
 segment, look up occupancy per sample.  K is static, so the op vmaps over
 arbitrary ray batches and compiles once.
 """

@@ -1,4 +1,4 @@
-"""Curvature-limited speed profile QP (TPU-native reference_path.py:289-354).
+"""Curvature-limited speed profile QP (the reference_path.py:289-354 port).
 
 Assigns a reference velocity to every waypoint by solving
 

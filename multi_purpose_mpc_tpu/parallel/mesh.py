@@ -10,11 +10,12 @@ one from the GSPMD playbook:
   dimension; path/grid data replicated;
 * **zero collectives in the hot loop** — XLA partitions the vmapped scan
   trivially; cross-device reductions appear only in metric aggregation
-  (``fleet_metrics``) where a ``psum``-style all-reduce rides the ICI.
+  (``fleet_metrics``) where a ``psum``-style all-reduce rides the device
+  interconnect.
 
 Multi-host scale-out uses the same code: ``jax.distributed.initialize`` +
-the global mesh makes lanes span slices (DCN enters only at checkpoint /
-metric time).
+the global mesh makes lanes span hosts (the network enters only at
+checkpoint / metric time).
 """
 
 from __future__ import annotations
@@ -41,50 +42,22 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> bool:
     """Multi-host seam: guarded ``jax.distributed.initialize``.
 
-    Call once per process before any backend use on a multi-host fleet
-    (TPU pod slice / multi-process CPU).  Coordinates come from (in order):
-    explicit arguments, the ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``
-    /``JAX_PROCESS_ID`` env vars jax itself reads, or — on a real TPU
-    backend — pod metadata via an argument-less
-    ``jax.distributed.initialize()`` attempt (the standard pod-slice path).
-    On non-TPU backends with no coordinates it no-ops, so single-process
-    CPU/GPU runs never pay a connection timeout.  Returns True iff the
-    distributed runtime was (or already is) initialized.
-
-    Tested seam status: mesh/batch logic below is unit-tested; an actual
-    multi-host run needs pod hardware this environment does not have.
+    Call once per process before any backend use on a multi-host fleet.
+    Coordinates come from explicit arguments or from the
+    ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
+    environment variables JAX itself reads.  With neither it no-ops, so
+    single-process runs never pay a connection timeout.  Returns True iff
+    the distributed runtime was (or already is) initialized.
     """
-    import importlib.util
     import os
 
     from jax._src import distributed as _dist
 
     if _dist.global_state.client is not None:  # already initialized
         return True
-    explicit = coordinator_address is not None
-    env = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if not explicit and env is None:
-        # TPU pods self-describe: argument-less initialize() reads pod
-        # metadata.  CRITICAL: jax.distributed.initialize() raises if any
-        # XLA backend already initialized, so the "is this a TPU machine?"
-        # probe must be BACKEND-FREE — jax.default_backend() would itself
-        # initialize backends and make the subsequent initialize() a
-        # guaranteed RuntimeError (dead code).  Signals that work without
-        # touching a backend: libtpu installed (every Cloud TPU VM image),
-        # TPU pod env vars, or a platform request naming tpu.
-        is_tpu = (importlib.util.find_spec("libtpu") is not None
-                  or "TPU_WORKER_HOSTNAMES" in os.environ
-                  or "TPU_NAME" in os.environ
-                  or "tpu" in (os.environ.get("JAX_PLATFORMS") or ""))
-        if not is_tpu:
-            return False  # single-process CPU/GPU: nothing to do
-        try:
-            jax.distributed.initialize()
-            return True
-        except Exception:
-            # single-host TPU VM without pod metadata, or called after
-            # backend init (callers must invoke this before any JAX compute)
-            return False
+    if (coordinator_address is None
+            and os.environ.get("JAX_COORDINATOR_ADDRESS") is None):
+        return False  # single process: nothing to do
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -95,8 +68,8 @@ def global_fleet_mesh() -> Mesh:
     """Process-count-aware mesh: one fleet axis over ALL global devices.
 
     Under ``jax.distributed`` this spans hosts — lanes shard across every
-    chip in the slice, ICI carries the (rare) metric all-reduce inside a
-    slice and DCN across slices.  Identical to :func:`fleet_mesh` on one
+    device of every process, and the (rare) metric all-reduce crosses the
+    hosts' network.  Identical to :func:`fleet_mesh` on one
     host, by construction.
     """
     return fleet_mesh(jax.devices())

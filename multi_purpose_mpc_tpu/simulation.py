@@ -1,4 +1,4 @@
-"""Closed-loop simulation drivers (TPU-native simulation.py).
+"""Closed-loop simulation drivers (the simulation.py port).
 
 The reference's ``while car.s < reference_path.length`` loop with inline
 matplotlib rendering (reference: simulation.py:134-163) becomes a fixed-length
@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
+from multi_purpose_mpc_tpu.backends import select_backends
 from multi_purpose_mpc_tpu.config import MPCConfig, ModelConfig, SimConfig
 from multi_purpose_mpc_tpu.models.bicycle import CarState, drive, init_car_state
 from multi_purpose_mpc_tpu.mpc import mpc_step
@@ -77,12 +78,13 @@ def _sim_step(state: CarState, path: PathData, grid: GridMap,
 
 def _sim_step_batched(state: CarState, path: PathData, grid: GridMap,
                       cfg: MPCConfig, model: ModelConfig, segments=None,
-                      table=None, weights=None):
-    """Fleet step: batched solver (Pallas kernel on TPU), vmapped rest."""
+                      weights=None):
+    """Fleet step: batched QP solve (the ADMM kernel on a GPU), vmapped
+    rest."""
     from multi_purpose_mpc_tpu.mpc import mpc_step_batched
 
     out = mpc_step_batched(state, path, grid, cfg, model, segments,
-                           table=table, weights=weights)
+                           weights=weights)
     return jax.vmap(lambda o: _post_control(o, path, model))(out)
 
 
@@ -105,8 +107,8 @@ def simulate_closed_loop(grid: GridMap, path: PathData, cfg: MPCConfig,
                          table=None) -> SimResult:
     """Single-lane closed-loop rollout as one compiled scan.
 
-    Internally runs the batched step with batch 1 so a single car still gets
-    the fused Pallas solver on TPU (10x the per-lane XLA path's rate)."""
+    Internally runs the fleet step with batch 1: one code path (and the
+    same solver backend) for a single car and a fleet."""
     if state0 is None:
         state0 = init_car_state(path, cfg.N)
     state_b = jax.tree.map(lambda a: a[None], state0)
@@ -169,19 +171,8 @@ def _simulate_fleet_static(grid: GridMap, path: PathData, cfg: MPCConfig,
                            state0: CarState, weights=None) -> SimResult:
     segs = _maybe_segments(grid, path, cfg, model, sim)
 
-    # windowed horizon table (ops/horizon_table.py): computed once per
-    # rollout, turns the per-step (B, N) corridor/LTV input gathers into one
-    # contiguous take — the gathers measured 30% of the step at batch 4096
-    table = None
-    if segs is not None and jax.default_backend() == "tpu" \
-            and cfg.solver_backend in ("auto", "pallas"):
-        from multi_purpose_mpc_tpu.ops.horizon_table import build_horizon_table
-
-        table = build_horizon_table(path, segs, cfg)
-
     def step_fn(state, _):
-        return _sim_step_batched(state, path, grid, cfg, model, segs, table,
-                                 weights)
+        return _sim_step_batched(state, path, grid, cfg, model, segs, weights)
 
     final, log = jax.lax.scan(step_fn, state0, None, length=sim.max_steps)
     # logs come out (T, B, ...); keep that layout (time-major)
@@ -241,42 +232,27 @@ def simulate_lidar_loop(true_grid: GridMap, known_grid: GridMap,
         known_grid.replace(occ=jnp.squeeze(occ, 0)))
 
 
-def resolve_lidar_backends(shared_grid: bool, clear_free: bool,
-                           scan_backend: str, writeback_backend: str,
-                           multi_device: bool = False):
-    """Resolve ``"auto"`` scan/write-back backends and validate the
-    combination — ONE policy shared by :func:`simulate_lidar_fleet` and the
-    sharded wrapper (`parallel.fleet.simulate_lidar_fleet_sharded`), so the
-    two entry points cannot drift.
+def resolve_lidar_backends(shared_grid: bool, scan_backend: str,
+                           writeback_backend: str,
+                           multi_device: bool = False, platform=None):
+    """Resolve ``"auto"`` scan/write-back backends
+    (:func:`~.backends.select_backends`) and validate the combination — ONE
+    policy shared by :func:`simulate_lidar_fleet` and the sharded wrapper
+    (`parallel.fleet.simulate_lidar_fleet_sharded`), so the two entry points
+    cannot drift.
 
-    ``multi_device=True`` (sharded, shared grid) forces the ``dense``
-    write-back: cross-device pooling rides observation masks.
+    ``multi_device=True`` with a shared grid forces the ``dense`` write-back:
+    cross-device pooling rides observation masks.
     """
-    is_tpu = jax.default_backend() == "tpu"
-    if scan_backend == "auto":
-        scan_backend = "cells" if is_tpu else "march"
-    if writeback_backend == "auto":
-        if shared_grid:
-            # mask-pooling path — required across devices; single-device
-            # 'dense' (TPU) and 'scatter' (CPU) pools are equivalent
-            writeback_backend = ("dense" if is_tpu or multi_device
-                                 else "scatter")
-        elif is_tpu:
-            # "packed" = the bitpacked fused kernel (32 rows/int32 word in
-            # HBM): same outputs as "fused", 32x less map-stack traffic and
-            # capacity — the default per-lane TPU path (VERDICT r3 #2)
-            writeback_backend = "packed" if not clear_free else "dense"
-        else:
-            writeback_backend = "scatter"
-    if writeback_backend in ("fused", "packed") and (shared_grid or clear_free):
-        raise ValueError(f"{writeback_backend} writeback supports per-lane "
-                         "grids with clear_free=False; use 'dense' or "
-                         "'scatter'")
-    if multi_device and shared_grid and writeback_backend != "dense":
+    if multi_device and shared_grid and writeback_backend == "auto":
+        writeback_backend = "dense"
+    b = select_backends(platform or jax.default_backend(), scan=scan_backend,
+                        writeback=writeback_backend)
+    if multi_device and shared_grid and b.writeback != "dense":
         raise ValueError("multi-device shared-grid mapping pools observation "
                          "masks across devices; writeback_backend must be "
                          "'dense'")
-    return scan_backend, writeback_backend
+    return b.scan, b.writeback
 
 
 def resolve_cell_table(true_grid: GridMap, path: PathData, lidar,
@@ -323,7 +299,7 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     Grid semantics (two supported modes):
       * ``shared_grid=False`` (default): per-lane known grids — independent
         Monte-Carlo mapping runs.  ``known_grid.occ`` may be (H, W) (tiled
-        to every lane) or already (B, H, W).  HBM cost: B x H x W x 4 bytes
+        to every lane) or already (B, H, W).  Device memory: B x H x W x 4 bytes
         (Sim_Track at B=256: 256 MB).
       * ``shared_grid=True``: ONE known grid cooperatively updated by all
         lanes each step (a mapping fleet pooling observations).  Lane
@@ -358,7 +334,7 @@ def simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
             tgrid = tgrid.replace(occ=tgrid.occ[0])
         table = build_scanline_table(tgrid, path, cfg.n_scan_samples)
     scan_backend, writeback_backend = resolve_lidar_backends(
-        shared_grid, clear_free, scan_backend, writeback_backend)
+        shared_grid, scan_backend, writeback_backend)
     cells = resolve_cell_table(true_grid, path, lidar, cells, scan_backend,
                                prune=prune_cells)
     return _simulate_lidar_fleet(true_grid, known_grid, path, cfg, model,
@@ -389,24 +365,11 @@ def _simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     if axis_name is not None and shared_grid and writeback_backend != "dense":
         raise ValueError("multi-device shared-grid pooling needs the 'dense' "
                          "write-back (observation masks)")
-    if writeback_backend in ("fused", "packed") and (shared_grid or clear_free):
-        # the fused kernels write hits only — guard at the dispatch layer so
-        # EVERY caller (incl. the sharded wrapper) rejects the combination
-        raise ValueError(f"{writeback_backend} writeback supports per-lane "
-                         "grids with clear_free=False; use 'dense' or "
-                         "'scatter'")
 
     B = state0.x.shape[0]
     occ0 = known_grid.occ
     if not shared_grid and occ0.ndim == 2:
         occ0 = jnp.broadcast_to(occ0, (B,) + occ0.shape)
-
-    if writeback_backend in ("fused", "packed"):
-        return _simulate_lidar_fleet_fused(true_grid, known_grid, path, cfg,
-                                           model, sim, lidar, state0, occ0,
-                                           table, cells, scan_backend,
-                                           weights=weights,
-                                           packed=writeback_backend == "packed")
 
     def step_fn(carry, _):
         state, occ = carry
@@ -479,70 +442,6 @@ def _simulate_lidar_fleet(true_grid: GridMap, known_grid: GridMap,
     return SimResult(final_state=final, log=log), occ
 
 
-def _simulate_lidar_fleet_fused(true_grid: GridMap, known_grid: GridMap,
-                                path: PathData, cfg: MPCConfig,
-                                model: ModelConfig, sim: SimConfig, lidar,
-                                state0: CarState, occ0: jnp.ndarray, table,
-                                cells, scan_backend: str, weights=None,
-                                packed: bool = False):
-    """Per-lane LiDAR fleet with the one-kernel map path: scan-hit write-back
-    and scanline extraction run fused per lane with the grid VMEM-resident
-    (:func:`~..ops.mapping_pallas.writeback_extract_pallas`) — bitwise the
-    ``dense`` write-back + ``pallas`` extraction results at a fraction of the
-    HBM traffic.  The occupancy carry stays row-padded across the rollout.
-
-    ``packed=True`` carries the grids BIT-PACKED (32 rows per int32 word,
-    :func:`~..ops.mapping_pallas.writeback_extract_packed`): identical
-    outputs, 32x less HBM traffic and capacity on the map stack — the
-    scale lever that takes per-lane mapping fleets past B=256."""
-    from multi_purpose_mpc_tpu.mpc import mpc_step_batched_with_corridor
-    from multi_purpose_mpc_tpu.ops.constraints import segments_from_samples
-    from multi_purpose_mpc_tpu.ops.corridor_extract import horizon_tables
-    from multi_purpose_mpc_tpu.ops.grid import w2m
-    from multi_purpose_mpc_tpu.ops.lidar import scan_fleet
-    from multi_purpose_mpc_tpu.ops.mapping_pallas import (
-        pack_rows, pad_rows, unpack_rows, writeback_extract_packed,
-        writeback_extract_pallas)
-
-    H, W = known_grid.occ.shape[-2:]
-    if packed:
-        occ0 = pack_rows(occ0, table.window_rows)
-        kernel_fn = writeback_extract_packed
-    else:
-        occ0 = pad_rows(occ0, table.window_rows)
-        kernel_fn = writeback_extract_pallas
-    sm = model.safety_margin
-
-    def step_fn(carry, _):
-        state, occ = carry
-        located, idx = _locate_horizon(state, path, cfg)
-        pxh, pyh, inbh, cxh, cyh, row0h = horizon_tables(table, idx)
-        scans = scan_fleet(true_grid, state.x, state.y, state.psi, lidar,
-                           cells=cells, backend=scan_backend,
-                           wp_id=state.wp_id)
-        hpx, hpy = w2m(known_grid, scans.hit_xy[..., 0],
-                       scans.hit_xy[..., 1])
-        hpx = jnp.clip(hpx, 0, W - 1)
-        hpy = jnp.clip(hpy, 0, H - 1)
-        new_occ, vals = kernel_fn(occ, hpx, hpy, scans.hit, pxh, pyh,
-                                  row0h, table.window_rows)
-        vals = jnp.where(inbh, vals, 0.0)  # OOB samples read as occupied
-        seg1 = lambda v, a, b: segments_from_samples(v, a, b, 2.0 * sm,
-                                                     cfg.max_segments)
-        segs = jax.vmap(jax.vmap(seg1))(vals, cxh, cyh)
-        corridor = _select_corridor_batched(path, segs, idx, cfg, sm)
-        out = mpc_step_batched_with_corridor(state, path, cfg, model,
-                                             located, corridor,
-                                             weights=weights)
-        st, log = jax.vmap(lambda o: _post_control(o, path, model))(out)
-        return (st, new_occ), log
-
-    (final, occ), log = jax.lax.scan(step_fn, (state0, occ0), None,
-                                     length=sim.max_steps)
-    occ = unpack_rows(occ, H) if packed else occ[:, :H]
-    return SimResult(final_state=final, log=log), occ
-
-
 def _locate_horizon(state: CarState, path: PathData, cfg: MPCConfig):
     """Fleet localization + horizon waypoint indices (starts at wp_id + 1,
     like the reference, MPC.py:116)."""
@@ -562,39 +461,29 @@ def _dynamic_corridor_batched(state: CarState, path: PathData,
     """Fleet localization + dynamic-grid corridor; ``occ`` is per-lane
     (B, H, W) or shared (H, W).  Extraction runs the configured
     :func:`~..ops.corridor_extract.extract_occ` backend over the static
-    scanline table; selection runs the fused Pallas kernel on TPU."""
+    scanline table."""
     from multi_purpose_mpc_tpu.ops.corridor_extract import fleet_dynamic_segments
 
     located, idx = _locate_horizon(state, path, cfg)
     sm = model.safety_margin
+    backend = select_backends(jax.default_backend(),
+                              extract=cfg.extract_backend).extract
     segs = fleet_dynamic_segments(occ, table, idx, 2.0 * sm,
-                                  cfg.max_segments,
-                                  backend=cfg.extract_backend)
+                                  cfg.max_segments, backend=backend)
     corridor = _select_corridor_batched(path, segs, idx, cfg, sm)
     return located, corridor
 
 
 def _select_corridor_batched(path: PathData, segs, idx, cfg: MPCConfig, sm):
-    """Corridor selection from per-lane segment candidates (fused Pallas
-    kernel on TPU, XLA scan elsewhere)."""
-    backend = cfg.solver_backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from multi_purpose_mpc_tpu.ops.corridor_pallas import (
-            corridor_select_pallas_segs)
+    """Corridor selection from per-lane segment candidates (one selection
+    scan per lane)."""
+    from multi_purpose_mpc_tpu.ops.constraints import (SegmentCandidates,
+                                                       select_corridor)
 
-        corridor = corridor_select_pallas_segs(
-            path, segs, idx, cfg, sm, lanes=cfg.solver.kernel_lanes or 128)
-    else:
-        from multi_purpose_mpc_tpu.ops.constraints import (SegmentCandidates,
-                                                           select_corridor)
-
-        corridor = jax.vmap(
-            lambda i, u, l, v: select_corridor(
-                path, i, SegmentCandidates(ub_xy=u, lb_xy=l, valid=v), sm)
-        )(idx, segs.ub_xy, segs.lb_xy, segs.valid)
-    return corridor
+    return jax.vmap(
+        lambda i, u, l, v: select_corridor(
+            path, i, SegmentCandidates(ub_xy=u, lb_xy=l, valid=v), sm)
+    )(idx, segs.ub_xy, segs.lb_xy, segs.valid)
 
 
 def _sim_step_batched_gridded(state: CarState, path: PathData,
@@ -604,7 +493,7 @@ def _sim_step_batched_gridded(state: CarState, path: PathData,
     """Fleet step where lanes drive on a per-step-updated occupancy grid —
     per-lane ``occ_b`` (B, H, W) or one shared (H, W) map — the dynamic-map
     variant of :func:`_sim_step_batched`.  The QP solve still runs the
-    batched backend (Pallas kernel on TPU).  ``weights``: per-lane
+    batched backend.  ``weights``: per-lane
     :class:`~multi_purpose_mpc_tpu.mpc.WeightSet` for tuning sweeps."""
     from multi_purpose_mpc_tpu.mpc import mpc_step_batched_with_corridor
 

@@ -1,8 +1,9 @@
 """Host-side occupancy-map loading and preprocessing.
 
 Image decode and speckle cleanup are one-time setup work on static assets, so
-they stay on the host (numpy + PIL + scipy.ndimage); the result is uploaded
-once as a device-resident :class:`~multi_purpose_mpc_tpu.ops.grid.GridMap`.
+they stay on the host (numpy + a standard-library PNG decoder +
+scipy.ndimage); the result is uploaded once as a device-resident
+:class:`~multi_purpose_mpc_tpu.ops.grid.GridMap`.
 This replaces the reference's in-object pipeline (reference: map.py:58-114)
 which used PIL + ``skimage.morphology.remove_small_holes``.
 """
@@ -10,11 +11,11 @@ which used PIL + ``skimage.morphology.remove_small_holes``.
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 from scipy import ndimage
 
 from multi_purpose_mpc_tpu.config import MapConfig
 from multi_purpose_mpc_tpu.ops.grid import GridMap, make_grid_map
+from multi_purpose_mpc_tpu.utils.png import read_png
 
 
 def binarize(img: np.ndarray, threshold_occupied: int = 100) -> np.ndarray:
@@ -53,7 +54,7 @@ def load_map_image(file_path: str, threshold_occupied: int = 100,
     equivalent of the reference's PIL/skimage native path — with the
     scipy.ndimage implementation as fallback.
     """
-    raw = np.array(Image.open(file_path))
+    raw = read_png(file_path)
     if raw.ndim == 3:
         raw = raw[:, :, 0]
     if use_native:

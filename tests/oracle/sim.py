@@ -3,7 +3,7 @@
 Drives the same control law as the framework — localization, t2s, dynamic
 corridor, LTV QP (dense, solved to 1e-10 by the float64 ADMM), infeasibility
 replay, forward-Euler plant — entirely in loop-based numpy.  Consumes the
-same PathData arrays as the TPU implementation so the comparison isolates
+same PathData arrays as the JAX implementation so the comparison isolates
 the controller/solver/corridor stack (geometry parity is tested separately).
 """
 

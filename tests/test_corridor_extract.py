@@ -13,7 +13,7 @@ from multi_purpose_mpc_tpu.ops.constraints import (update_path_constraints,
                                                    SegmentCandidates)
 from multi_purpose_mpc_tpu.ops.corridor_extract import (
     build_scanline_table, extract_occ_gather, extract_occ_onehot,
-    extract_occ_pallas, fleet_dynamic_segments, horizon_tables)
+    fleet_dynamic_segments, horizon_tables)
 from multi_purpose_mpc_tpu.ops.path import gather_waypoint_index
 
 
@@ -55,56 +55,36 @@ def test_table_matches_inline_sampling(setup):
     cx, cy = m2w(grid, s.px, s.py)
     np.testing.assert_array_equal(np.asarray(t.cx), np.asarray(cx))
     np.testing.assert_array_equal(np.asarray(t.cy), np.asarray(cy))
-    # row windows cover every sample row
-    py = np.asarray(t.py)
-    r0 = np.asarray(t.row0)
-    assert (py.min(1) >= r0).all()
-    assert (py.max(1) < r0 + t.window_rows).all()
-    assert (r0 % 8 == 0).all()
-
-
-def test_window_covers_alignment_slack():
-    """row0 floors rmin to a multiple of 8, so the window must be sized for
-    span + alignment slack (up to 7 rows).  A scanline spanning rows 15..140
-    (raw span 126 < 128, aligned span 133 > 128) used to pass the guard yet
-    read rows 136..140 outside the window as occupied."""
-    from types import SimpleNamespace
-
-    from multi_purpose_mpc_tpu.ops.grid import make_grid_map
-
-    grid = make_grid_map(np.ones((200, 256), np.float32), (0.0, 0.0), 0.01)
-    path = SimpleNamespace(
-        border_ub=jnp.asarray([[0.505, 1.405]], jnp.float32),  # row 140
-        border_lb=jnp.asarray([[0.505, 0.155]], jnp.float32))  # row 15
-    t = build_scanline_table(grid, path, n_samples=256)
-    py = np.asarray(t.py)
-    r0 = np.asarray(t.row0)
-    assert (py.min(1) >= r0).all()
-    assert (py.max(1) < r0 + t.window_rows).all(), (
-        py.max(), r0, t.window_rows)
-    assert (r0 % 8 == 0).all()
 
 
 def test_extraction_backends_agree(setup):
+    """onehot == gather bitwise on per-lane grids, directly and through the
+    dispatching extract_occ."""
+    from multi_purpose_mpc_tpu.ops.corridor_extract import extract_occ
+
     t, idx, occ_b = setup["table"], setup["idx"], setup["occ_b"]
-    px, py, _, _, _, row0 = horizon_tables(t, idx)
+    px, py, _, _, _ = horizon_tables(t, idx)
     v_g = extract_occ_gather(occ_b, px, py)
     v_o = extract_occ_onehot(occ_b, px, py)
-    v_p = extract_occ_pallas(occ_b, px, py, row0, t.window_rows,
-                             interpret=True)
     np.testing.assert_array_equal(np.asarray(v_g), np.asarray(v_o))
-    np.testing.assert_array_equal(np.asarray(v_g), np.asarray(v_p))
+    np.testing.assert_array_equal(
+        np.asarray(extract_occ(occ_b, px, py, backend="onehot")),
+        np.asarray(v_g))
+    with pytest.raises(ValueError):
+        extract_occ(occ_b, px, py, backend="pallas")
 
 
 def test_extraction_backends_agree_shared(setup):
+    """onehot == gather bitwise on one shared grid (odd chunking too)."""
     t, idx, grid = setup["table"], setup["idx"], setup["grid"]
-    px, py, _, _, _, row0 = horizon_tables(t, idx)
+    px, py, _, _, _ = horizon_tables(t, idx)
     v_g = extract_occ_gather(grid.occ, px, py)
-    v_o = extract_occ_onehot(grid.occ, px, py)
-    v_p = extract_occ_pallas(grid.occ, px, py, row0, t.window_rows,
-                             interpret=True)
-    np.testing.assert_array_equal(np.asarray(v_g), np.asarray(v_o))
-    np.testing.assert_array_equal(np.asarray(v_g), np.asarray(v_p))
+    np.testing.assert_array_equal(np.asarray(v_g),
+                                  np.asarray(extract_occ_onehot(grid.occ,
+                                                                px, py)))
+    np.testing.assert_array_equal(
+        np.asarray(v_g),
+        np.asarray(extract_occ_onehot(grid.occ, px, py, chunk=7)))
 
 
 def test_fleet_corridor_matches_per_lane_reference(setup):
@@ -127,27 +107,3 @@ def test_fleet_corridor_matches_per_lane_reference(setup):
                                   np.asarray(cor_ref.ub))
     np.testing.assert_array_equal(np.asarray(cor_new.lb),
                                   np.asarray(cor_ref.lb))
-
-
-@pytest.mark.slow
-@pytest.mark.kernel
-def test_select_pallas_segs_matches_xla(setup):
-    """The per-lane-candidates wrapper of the selection kernel (dynamic-grid
-    path) agrees with the XLA selection scan (interpret mode)."""
-    from multi_purpose_mpc_tpu.ops.corridor_pallas import (
-        corridor_select_pallas_segs)
-
-    path, cfg, model = setup["path"], setup["cfg"], setup["model"]
-    t, idx, occ_b = setup["table"], setup["idx"], setup["occ_b"]
-    sm = model.safety_margin
-    segs = fleet_dynamic_segments(occ_b, t, idx, 2.0 * sm, cfg.max_segments,
-                                  backend="gather")
-    cor_x = jax.vmap(lambda i, u, l, v: select_corridor(
-        path, i, SegmentCandidates(ub_xy=u, lb_xy=l, valid=v), sm))(
-            idx, segs.ub_xy, segs.lb_xy, segs.valid)
-    cor_k = corridor_select_pallas_segs(path, segs, idx, cfg, sm,
-                                        lanes=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(cor_k.ub), np.asarray(cor_x.ub),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(cor_k.lb), np.asarray(cor_x.lb),
-                               atol=1e-5)

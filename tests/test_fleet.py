@@ -65,12 +65,17 @@ def test_sharded_rollout_matches_single_device(scenario):
     assert np.abs(np.asarray(sharded.log.e_y)).max() < \
         np.abs(np.asarray(plain.log.e_y)).max() + 0.02
     assert np.asarray(sharded.log.ok).mean() > 0.9
-    # same sharded program twice is bitwise deterministic
+    # same sharded program twice is bitwise deterministic, and the second
+    # call reuses the compiled program
+    from multi_purpose_mpc_tpu.parallel.fleet import _fleet_rollout
+
+    n_compiled = _fleet_rollout._cache_size()
     sharded2 = simulate_fleet_sharded(mesh, scenario["grid"], scenario["path"],
                                       scenario["mpc_cfg"], scenario["model_cfg"],
                                       SimConfig(max_steps=T), fleet0)
     np.testing.assert_array_equal(np.asarray(sharded.log.x),
                                   np.asarray(sharded2.log.x))
+    assert _fleet_rollout._cache_size() == n_compiled
 
 
 def test_fleet_metrics_aggregate(scenario):
@@ -156,13 +161,17 @@ def test_sharded_lidar_fleet_per_lane(scenario):
     n_diff = int((np.asarray(occ_s) != np.asarray(occ_p)).sum())
     assert n_diff < 0.2 * max(n_disc, 1), (n_diff, n_disc)
     assert not np.asarray(shd.final_state.failed).any()
-    # bitwise-deterministic across runs
+    # bitwise-deterministic across runs, with no second compile
+    from multi_purpose_mpc_tpu.parallel.fleet import _lidar_rollout
+
+    n_compiled = _lidar_rollout._cache_size()
     shd2, occ_s2 = simulate_lidar_fleet_sharded(
         mesh, true_grid, known0, scenario["path"], scenario["mpc_cfg"],
         scenario["model_cfg"], SimConfig(max_steps=T), lidar, fleet0)
     np.testing.assert_array_equal(np.asarray(occ_s), np.asarray(occ_s2))
     np.testing.assert_array_equal(np.asarray(shd.log.x),
                                   np.asarray(shd2.log.x))
+    assert _lidar_rollout._cache_size() == n_compiled
 
 
 def test_sharded_lidar_fleet_shared_grid(scenario):

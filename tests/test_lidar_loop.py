@@ -175,22 +175,29 @@ def test_lidar_fleet_shared_grid_clear_free(scenario):
 
 def test_resolve_lidar_backends_policy():
     """One policy for both entry points (review finding: the duplicated
-    resolution had already drifted).  On this CPU test host:"""
+    resolution had already drifted), the same on CPU and GPU platforms."""
     from multi_purpose_mpc_tpu.simulation import resolve_lidar_backends
 
-    assert resolve_lidar_backends(False, False, "auto", "auto") == \
-        ("march", "scatter")
-    assert resolve_lidar_backends(True, False, "auto", "auto") == \
-        ("march", "scatter")
-    # sharded shared grid must pool masks -> dense, even on CPU
-    assert resolve_lidar_backends(True, False, "auto", "auto",
-                                  multi_device=True) == ("march", "dense")
-    with pytest.raises(ValueError, match="fused"):
-        resolve_lidar_backends(False, True, "auto", "fused")
-    with pytest.raises(ValueError, match="fused"):
-        resolve_lidar_backends(True, False, "auto", "fused")
+    for platform in ("cpu", "gpu"):
+        assert resolve_lidar_backends(False, "auto", "auto",
+                                      platform=platform) == \
+            ("march", "scatter")
+        assert resolve_lidar_backends(True, "auto", "auto",
+                                      platform=platform) == \
+            ("march", "scatter")
+        # sharded shared grid must pool masks -> dense
+        assert resolve_lidar_backends(True, "auto", "auto",
+                                      multi_device=True,
+                                      platform=platform) == ("march", "dense")
+    # explicit choices pass through; removed or unknown ones raise
+    assert resolve_lidar_backends(False, "cells", "dense") == \
+        ("cells", "dense")
+    with pytest.raises(ValueError, match="writeback"):
+        resolve_lidar_backends(False, "auto", "fused")
+    with pytest.raises(ValueError, match="writeback"):
+        resolve_lidar_backends(True, "auto", "packed")
     with pytest.raises(ValueError, match="dense"):
-        resolve_lidar_backends(True, False, "auto", "scatter",
+        resolve_lidar_backends(True, "auto", "scatter",
                                multi_device=True)
 
 

@@ -96,7 +96,7 @@ def test_real_track_lidar_fleet_smoke(real_track):
     lidar.validate_for_grid(float(grid.resolution))
     fleet0 = init_fleet(path, real_track["mpc_cfg"].N, batch=2,
                         wp_id0=jnp.asarray([0, 60], jnp.int32))
-    # exercise the TPU-default backends explicitly on CPU
+    # exercise the gather-free scan and matmul write-back backends
     res, occ = simulate_lidar_fleet(
         grid, known0, path, real_track["mpc_cfg"], real_track["model_cfg"],
         SimConfig(max_steps=10, static_grid=False), lidar, fleet0,

@@ -1,5 +1,5 @@
 """Fleet-scale LiDAR backends: the "cells" scan (dense per-occupied-cell
-sweep — the TPU-native form of the reference's per-cell loop,
+sweep — the gather-free form of the reference's per-cell loop,
 lidar_model.py:62-108) and the dense matmul write-back, against their
 reference-semantics counterparts."""
 

@@ -84,10 +84,10 @@ def test_closed_loop_matches_oracle_behavior(scenario_free):
     # pinch-points both controllers legitimately enter the reference's
     # replay path (MPC.py:208-216), after which step-by-step comparison is
     # meaningless.  Require a long clean prefix.
-    ok_tpu = np.asarray(log.ok)
+    ok_jax = np.asarray(log.ok)
     first_bad = min(
         int(np.argmax(~olog["solved"])) if (~olog["solved"]).any() else T,
-        int(np.argmax(~ok_tpu)) if (~ok_tpu).any() else T,
+        int(np.argmax(~ok_jax)) if (~ok_jax).any() else T,
         len(olog["x"]))
     To = first_bad
     assert To >= 35, f"clean comparison window too short: {To}"
@@ -97,20 +97,20 @@ def test_closed_loop_matches_oracle_behavior(scenario_free):
     # back into the v_max_dyn = sqrt(ay_max/|kappa_pred|) cap — in the
     # reference exactly as here — so the tail comparison is statistical.
     assert abs(float(np.asarray(log.v)[0]) - olog["v"][0]) < 5e-3
-    v_tpu = np.asarray(log.v)[:To]
+    v_jax = np.asarray(log.v)[:To]
     v_orc = olog["v"][:To]
     # both solvers clamp v to sqrt(ay_max/|kappa_pred|) at kappa-flat-driven
     # steps; means agree to ~5%
-    assert abs(v_tpu.mean() - v_orc.mean()) < 0.05
+    assert abs(v_jax.mean() - v_orc.mean()) < 0.05
     # path progress within the same ~5% band as speed
     ds = np.abs(np.asarray(log.s)[To - 1] - olog["s"][To - 1])
     assert ds < 0.05 * olog["s"][To - 1] + 0.01, f"progress deviation {ds:.3e}"
     # cross-track behavior: both tracks stay near the corridor center;
     # compare e_y envelopes rather than step-by-step poses
-    e_tpu = np.asarray(log.e_y)[:To]
+    e_jax = np.asarray(log.e_y)[:To]
     e_orc = olog["e_y"][:To]
-    assert np.abs(e_tpu).max() < max(np.abs(e_orc).max() + 0.02, 0.03)
-    assert np.abs(e_tpu.mean() - e_orc.mean()) < 0.01
+    assert np.abs(e_jax).max() < max(np.abs(e_orc).max() + 0.02, 0.03)
+    assert np.abs(e_jax.mean() - e_orc.mean()) < 0.01
 
 
 def test_full_lap_completes_and_tracks(scenario):

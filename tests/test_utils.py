@@ -14,8 +14,7 @@ from multi_purpose_mpc_tpu.config import SimConfig
 from multi_purpose_mpc_tpu.ops.speed_profile import compute_speed_profile
 from multi_purpose_mpc_tpu.simulation import init_fleet, simulate_fleet
 from multi_purpose_mpc_tpu.utils.checkpoint import load_fleet_state, save_fleet_state
-from multi_purpose_mpc_tpu.utils.profiling import (scan_marginal_cost,
-                                                   time_stages, timeit)
+from multi_purpose_mpc_tpu.utils.profiling import time_stages, timeit
 from multi_purpose_mpc_tpu.utils.viz import render_frame, render_trajectory
 
 
@@ -47,25 +46,6 @@ def test_checkpoint_roundtrip_resumes_identically(sim_track, tmp_path):
     resumed = _rollout(scenario, restored, 4)
     np.testing.assert_array_equal(np.asarray(cont.log.x),
                                   np.asarray(resumed.log.x))
-
-
-def test_scan_marginal_cost_orders_ops():
-    """The in-loop marginal-cost probe (the round-3 measurement rule as a
-    library utility): a real matmul must cost measurably more per iteration
-    than a cheap elementwise op, and both must be finite and >= 0."""
-    a = jnp.ones((256, 256), jnp.float32)
-
-    def perturb(args, i):
-        (x,) = args
-        return (x + (i % 2).astype(jnp.float32) * 1e-6,)
-
-    t_mm = scan_marginal_cost(lambda x: (x @ x) @ x, (a,), perturb,
-                              steps=16, repeats=2)
-    t_add = scan_marginal_cost(lambda x: x + 1.0, (a,), perturb,
-                               steps=16, repeats=2)
-    assert np.isfinite(t_mm) and np.isfinite(t_add)
-    assert t_mm >= 0.0 and t_add >= 0.0
-    assert t_mm > t_add
 
 
 def test_lidar_fleet_checkpoint_resume(sim_track, tmp_path):
@@ -147,9 +127,9 @@ def test_profiling_helpers():
 
 
 def test_profiling_fence_agrees_with_bench_style_timing(sim_track):
-    """`timeit` (host-transfer fence) matches a manual bench.py-style
-    measurement of the same jitted step, so time_stages is trustworthy on
-    the remote-execution platform (VERDICT weak #6)."""
+    """`timeit` (fenced with block_until_ready) matches a manual
+    measurement of the same jitted step fenced by a host transfer, so
+    time_stages measures compute, not dispatch."""
     import time
 
     scenario = dict(sim_track,
@@ -167,7 +147,7 @@ def test_profiling_fence_agrees_with_bench_style_timing(sim_track):
     for _ in range(3):
         t0 = time.perf_counter()
         out = run()
-        _ = float(np.asarray(out.sum()))  # bench.py's fence
+        _ = float(np.asarray(out.sum()))  # host-transfer fence
         manual.append(time.perf_counter() - t0)
     t_manual = sorted(manual)[1]
 
